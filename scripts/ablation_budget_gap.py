@@ -30,8 +30,8 @@ import numpy as np
 
 def load(path):
     """Current-protocol rows keyed by (name, seed) — shared implementation
-    in ``edrl_tpu.train.study_io``."""
-    from edrl_tpu.train.study_io import load_by_name_seed
+    in ``edrl.train.study_io``."""
+    from edrl.train.study_io import load_by_name_seed
 
     return load_by_name_seed(path)
 

@@ -30,8 +30,8 @@ LATE = "Multi_ResNet (late fusion)"
 
 def load(path):
     """Current-protocol rows grouped by variant name, sweep keys as floats
-    (shared filtering/seed-normalization: ``edrl_tpu.train.study_io``)."""
-    from edrl_tpu.train.study_io import load_protocol_rows
+    (shared filtering/seed-normalization: ``edrl.train.study_io``)."""
+    from edrl.train.study_io import load_protocol_rows
 
     by = {}
     for r in load_protocol_rows(path, warn=True):

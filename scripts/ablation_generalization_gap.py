@@ -1,7 +1,7 @@
 """Seen-val vs held-out-val comparison: the memorization tell, quantified.
 
 Round 3 found that every synthetic val split replayed the train per-index
-entropy (``edrl_tpu/data/synthetic.py::_index_entropy``), so the archived
+entropy (``edrl/data/synthetic.py::_index_entropy``), so the archived
 ablation table (``ABLATION_r3_seenval.jsonl``) was measured on SEEN data.
 After the fix, the re-run (``ABLATION.md.jsonl``) evaluates on genuinely
 held-out draws.  The per-variant drop between the two runs is itself
@@ -34,8 +34,8 @@ import numpy as np
 
 def load(path):
     """Current-protocol rows keyed by (name, seed) — shared implementation
-    in ``edrl_tpu.train.study_io``."""
-    from edrl_tpu.train.study_io import load_by_name_seed
+    in ``edrl.train.study_io``."""
+    from edrl.train.study_io import load_by_name_seed
 
     return load_by_name_seed(path)
 

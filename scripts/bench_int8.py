@@ -1,4 +1,4 @@
-"""Measure W8A8 int8 serving throughput vs the bf16 eval path (TPU).
+"""Measure W8A8 int8 serving throughput vs the bf16 eval path.
 
 Same scanned-on-device methodology as ``bench.py``'s ``bench_infer_step``
 (one jitted ``lax.scan``, carry fed back into the input so XLA cannot hoist
@@ -25,8 +25,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_comp_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 
 def main():
@@ -46,9 +44,9 @@ def main():
     )
     args = ap.parse_args()
 
-    from edrl_tpu.config import DataConfig, EDRLConfig, ModelConfig, TrainConfig
-    from edrl_tpu.ops.quantization import int8_dense, quantize_for_serving
-    from edrl_tpu.train.trainer import _normalize_output, init_state
+    from edrl.config import DataConfig, EDRLConfig, ModelConfig, TrainConfig
+    from edrl.ops.quantization import int8_dense, quantize_for_serving
+    from edrl.train.trainer import _normalize_output, init_state
 
     cfg = EDRLConfig(
         data=DataConfig(batch_size=args.batch, eval_batch_size=args.batch),
@@ -109,7 +107,7 @@ def main():
 
     modes = [("bf16", variables, {}), ("int8", qvariables, scales)]
     if args.static:
-        from edrl_tpu.ops.quantization import calibrate_activation_scales
+        from edrl.ops.quantization import calibrate_activation_scales
 
         # Calibrate on a DIFFERENT rng draw than the eval batch so the
         # reported static numerics are out-of-sample (saturation on values
@@ -173,8 +171,7 @@ def main():
 
 
 if __name__ == "__main__":
-    from edrl_tpu.utils import tpu_lock
+    from edrl.device import enable_compile_cache
 
-    tpu_lock.wait_until_free(timeout_s=6 * 3600.0)
-    with tpu_lock.hold("bench_int8.py"):
-        main()
+    enable_compile_cache()
+    main()

@@ -1,9 +1,9 @@
-"""Bench any registry model's dual-view train step (pairs/sec/chip).
+"""Bench any registry model's dual-view train step (pairs/sec/card).
 
 Baseline-vs-EDRL perf comparisons are only meaningful when the baselines run
-the same TPU-first kernel path as the flagship (VERDICT r2 item 7); the
-registry threads the flagship layout into the transformer baselines, and
-this probe measures any of them under the flagship's bench harness:
+the same backbone layout as the flagship; the registry threads the flagship
+layout into the transformer baselines, and this probe measures any of them
+under the flagship's bench harness:
 
     python scripts/bench_model.py Trans_cross
     python scripts/bench_model.py Multi_ResNet --batch_size 32
@@ -52,8 +52,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    from edrl_tpu.utils import tpu_lock
+    from edrl.device import enable_compile_cache
 
-    tpu_lock.wait_until_free(timeout_s=6 * 3600.0)
-    with tpu_lock.hold("bench_model.py"):
-        main()
+    enable_compile_cache()
+    main()

@@ -1,6 +1,6 @@
 """Prebuild the uint8 decode+resize cache for a GAMMA/Harvard tree.
 
-Host-only (no TPU, no JAX): walks every labeled sample through
+Host-only (no device, no JAX): walks every labeled sample through
 ``GammaDataset._load_raw`` once so the per-sample ``_edrl_cache8_*.npz``
 files exist before training starts — the first training epoch then reads
 ~1 ms uint8 caches instead of paying PNG+NIfTI decode + resize per sample
@@ -28,7 +28,7 @@ _WORKER_DS = None
 
 def _worker_init(cfg):
     global _WORKER_DS
-    from edrl_tpu.data.gamma import GammaDataset
+    from edrl.data.gamma import GammaDataset
 
     _WORKER_DS = GammaDataset(cfg, mode="train")
 
@@ -51,8 +51,8 @@ def main(argv=None) -> int:
                    "has one core, real hosts want #cores)")
     args = p.parse_args(argv)
 
-    from edrl_tpu.config import DataConfig
-    from edrl_tpu.data.gamma import GammaDataset
+    from edrl.config import DataConfig
+    from edrl.data.gamma import GammaDataset
 
     cfg = DataConfig(
         dataset="dr2",

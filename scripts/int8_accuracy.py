@@ -20,12 +20,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_comp_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 
 def main(argv=None):
-    from edrl_tpu.cli.train import build_parser, config_from_args, make_loaders
+    from edrl.cli.train import build_parser, config_from_args, make_loaders
 
     parser = build_parser()
     parser.add_argument("--checkpoint", required=True)
@@ -44,9 +42,9 @@ def main(argv=None):
 
     import os
 
-    from edrl_tpu.serve import Predictor
-    from edrl_tpu.train.metrics import compute_epoch_metrics
-    from edrl_tpu.train.trainer import _dequantize
+    from edrl.serve import Predictor
+    from edrl.train.metrics import compute_epoch_metrics
+    from edrl.train.trainer import _dequantize
 
     directory, name = os.path.split(args.checkpoint.rstrip("/"))
     _, val_loader = make_loaders(cfg)
@@ -54,7 +52,7 @@ def main(argv=None):
     # Collect the val set once (low-noise view, same as make_eval_step).
     import jax.numpy as jnp
 
-    from edrl_tpu.data.device_noise import make_low_view_device
+    from edrl.data.device_noise import make_low_view_device
 
     @jax.jit
     def low_view(f, o):
@@ -122,4 +120,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from edrl.device import enable_compile_cache
+
+    enable_compile_cache()
     main()

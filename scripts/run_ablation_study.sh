@@ -9,16 +9,15 @@ cd "$(dirname "$0")/.."
 EPOCHS="${EPOCHS:-25}"
 SEEDS="${SEEDS:-0 1 2}"
 PROTOCOL="${PROTOCOL:-hard}"
-# Cold /tmp/jax_comp_cache rounds pay a 15-25 min AOT compile on the first
-# run of each distinct program; 5400 s only fits that plus training when the
-# cache is warm, so the budget is overridable.
+# A cold compile cache pays a full-model compile on the first run of each
+# distinct program; the budget is overridable.
 RUN_TIMEOUT="${RUN_TIMEOUT:-5400}"
 # Deadline guard: if DEADLINE_FILE holds an epoch-seconds timestamp, no NEW
 # run starts after it (in-flight runs finish and their row still lands in the
-# .jsonl).  Lets a detached multi-hour queue yield the single TPU cleanly
-# before something else (e.g. end-of-round benchmarking) needs it; the
-# deadline can be moved by rewriting the file while the queue runs.
-DEADLINE_FILE="${DEADLINE_FILE:-/tmp/study_deadline}"
+# .jsonl).  Lets a detached multi-hour queue yield the card cleanly before
+# something else needs it; the deadline can be moved by rewriting the file
+# while the queue runs.
+DEADLINE_FILE="${DEADLINE_FILE:-results/study_deadline}"
 past_deadline() {
   [ -f "$DEADLINE_FILE" ] || return 1
   local d now

@@ -9,7 +9,7 @@
 set -euo pipefail
 cd "$(dirname "$0")/.."
 
-python -m edrl_tpu.cli.train \
+python -m edrl.cli.train \
     --model_name "IMDR" \
     --dataset "${DATASET:-synthetic}" \
     --mode "train&test" \

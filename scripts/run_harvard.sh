@@ -1,24 +1,24 @@
 #!/bin/bash
-# Day-one real-data runbook (VERDICT r4 next-#5): one command from a raw
+# Day-one real-data runbook: one command from a raw
 # Harvard-FairVision/GAMMA tree to a restart-safe 5-fold training queue.
 #
 #   DATA=/data/gamma LABELS=/data/train_true.xlsx bash scripts/run_harvard.sh
 #
 # Steps:
 #   1. PREFLIGHT — scripts/verify_dataset.py validates the label join, path
-#      patterns, NIfTI headers, OCT slice order BEFORE the 15-25 min TPU
+#      patterns, NIfTI headers, OCT slice order BEFORE the full-model
 #      compile; any error aborts the queue with actionable messages.
 #   2. CACHE BUILD — scripts/build_cache.py decodes+resizes every sample
 #      once into uint8 npz caches (host-only; first epoch then streams at
 #      ~480 pairs/s instead of decode speed).
-#   3. 5-FOLD QUEUE — python -m edrl_tpu.cli.train per fold (KFold seed 10
+#   3. 5-FOLD QUEUE — python -m edrl.cli.train per fold (KFold seed 10
 #      parity, fusion_train.py:564), each run --resume-ing from its rolling
-#      orbax `latest`, deadline-file guarded like every queue in this repo
+#      `latest` checkpoint, deadline-file guarded like every queue in this repo
 #      (write epoch-seconds to $DEADLINE_FILE to stop cleanly).
 #
 # Env knobs: DATASET (dr2), EPOCHS (200), BATCH (16), SCAN (16),
-#   FOLDS ("0 1 2 3 4"), OUT_ROOT (/tmp/harvard), RUN_TIMEOUT (43200 s/fold),
-#   DEADLINE_FILE (/tmp/study_deadline), EXTRA_ARGS (passed to cli.train),
+#   FOLDS ("0 1 2 3 4"), OUT_ROOT (results/harvard), RUN_TIMEOUT (43200 s/fold),
+#   DEADLINE_FILE (results/study_deadline), EXTRA_ARGS (passed to cli.train),
 #   SKIP_TRAIN=1 (preflight+cache only — used by the dress-rehearsal test).
 set -u
 cd "$(dirname "$0")/.."
@@ -29,11 +29,10 @@ EPOCHS="${EPOCHS:-200}"
 BATCH="${BATCH:-16}"
 SCAN="${SCAN:-16}"
 FOLDS="${FOLDS:-0 1 2 3 4}"
-OUT_ROOT="${OUT_ROOT:-/tmp/harvard}"
+OUT_ROOT="${OUT_ROOT:-results/harvard}"
 RUN_TIMEOUT="${RUN_TIMEOUT:-43200}"
-DEADLINE_FILE="${DEADLINE_FILE:-/tmp/study_deadline}"
+DEADLINE_FILE="${DEADLINE_FILE:-results/study_deadline}"
 EXTRA_ARGS="${EXTRA_ARGS:-}"
-export JAX_COMPILATION_CACHE_DIR="${JAX_COMPILATION_CACHE_DIR:-/tmp/jax_comp_cache}"
 mkdir -p "$OUT_ROOT"
 
 past_deadline() {
@@ -70,7 +69,7 @@ echo "=== [3/3] 5-fold training queue (resumable) ==="
 for f in $FOLDS; do
   guard
   echo "--- fold $f -> $OUT_ROOT/ckpt_fold$f ---"
-  timeout "$RUN_TIMEOUT" python -m edrl_tpu.cli.train \
+  timeout "$RUN_TIMEOUT" python -m edrl.cli.train \
     --dataset "$DATASET" --data_path "$DATA" --label_file "$LABELS" \
     --folder "folder$f" --batch_size "$BATCH" --end_epochs "$EPOCHS" \
     --scan_batches "$SCAN" --resume --save_latest_every 1 \

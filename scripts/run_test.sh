@@ -4,7 +4,7 @@
 set -euo pipefail
 cd "$(dirname "$0")/.."
 
-python -m edrl_tpu.cli.test \
+python -m edrl.cli.test \
     --model_name "IMDR" \
     --dataset "${DATASET:-synthetic}" \
     --folder folder0 \

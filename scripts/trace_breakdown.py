@@ -5,7 +5,6 @@ tensorboard needed) and aggregates device-op durations by HLO category —
 the ground truth for where step time goes.
 
     python scripts/trace_breakdown.py                 # full train step, batch 16
-    python scripts/trace_breakdown.py --fused_block   # v4 attention-sublayer path
 """
 
 from __future__ import annotations
@@ -25,16 +24,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_comp_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
-TRACE_DIR = "/tmp/edrl_trace"
+TRACE_DIR = os.path.join(os.path.dirname(__file__), "..", "results", "trace")
 
 
 def run_profiled_steps(batch_size=16, steps=5, **model_kwargs):
     from bench import make_batch
-    from edrl_tpu.config import DataConfig, EDRLConfig, ModelConfig, TrainConfig
-    from edrl_tpu.train.trainer import (
+    from edrl.config import DataConfig, EDRLConfig, ModelConfig, TrainConfig
+    from edrl.train.trainer import (
         init_state,
         make_model,
         make_optimizer,
@@ -66,7 +63,7 @@ def run_profiled_steps(batch_size=16, steps=5, **model_kwargs):
 CATEGORIES = (
     ("fusion", re.compile(r"^(loop_)?fusion")),
     ("convolution/dot", re.compile(r"convolution|dot|cublas|matmul")),
-    ("pallas attention", re.compile(r"attn|pallas|custom-call")),
+    ("attention/custom-call", re.compile(r"attn|attention|custom-call")),
     ("copy/transpose", re.compile(r"copy|transpose|reshape|bitcast|concatenate|slice|pad|roll|dynamic")),
     ("reduce/norm", re.compile(r"reduce|norm")),
     ("all-reduce/collective", re.compile(r"all-|collective|psum")),
@@ -83,7 +80,7 @@ def parse_trace(steps: int):
     with gzip.open(sorted(files)[-1], "rt") as f:
         trace = json.load(f)
     events = trace.get("traceEvents", [])
-    # Device lanes: pid whose name mentions TPU/device; fall back to all
+    # Device lanes: pid whose name names a device; fall back to all
     # complete events with 'dur'.
     pid_names = {
         e.get("pid"): e.get("args", {}).get("name", "")
@@ -91,7 +88,7 @@ def parse_trace(steps: int):
         if e.get("ph") == "M" and e.get("name") == "process_name"
     }
     device_pids = {
-        p for p, n in pid_names.items() if re.search(r"TPU|/device|Chip", n, re.I)
+        p for p, n in pid_names.items() if re.search(r"/device:", n, re.I)
     }
     by_cat = collections.Counter()
     by_op = collections.Counter()
@@ -122,12 +119,8 @@ def parse_trace(steps: int):
 
 
 if __name__ == "__main__":
-    from edrl_tpu.utils import tpu_lock
+    from edrl.device import enable_compile_cache, require_gpu
 
-    kwargs = {}
-    if "--fused_block" in sys.argv:
-        kwargs["use_fused_block_attention"] = True
-    tpu_lock.wait_until_free(timeout_s=6 * 3600.0)
-    with tpu_lock.hold("trace_breakdown.py"):
-        steps = run_profiled_steps(**kwargs)
-    parse_trace(steps)
+    require_gpu()
+    enable_compile_cache()
+    parse_trace(run_profiled_steps())

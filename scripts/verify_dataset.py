@@ -1,7 +1,7 @@
 """Preflight a real GAMMA / Harvard-style dataset tree.
 
 Answers "will ``--dataset dr2`` (or glu2) work on this disk?" in seconds —
-BEFORE paying the 15-25 minute full-model TPU compile — by validating the
+BEFORE paying the full-model compile — by validating the
 label join, fundus path pattern, NIfTI headers (dims, datatype, scaling,
 truncation), and OCT slice ordering, with actionable per-sample errors.
 
@@ -11,7 +11,7 @@ truncation), and OCT slice ordering, with actionable per-sample errors.
     # decode every sample through the real loader too (slower):
     python scripts/verify_dataset.py ... --deep
 
-Exit code 0 = READY, 1 = errors found.  Logic: ``edrl_tpu/data/verify.py``
+Exit code 0 = READY, 1 = errors found.  Logic: ``edrl/data/verify.py``
 (tested against deliberately-corrupted fixtures in
 ``tests/test_verify_dataset.py``).
 """
@@ -44,8 +44,8 @@ def main(argv=None) -> int:
     )
     args = p.parse_args(argv)
 
-    from edrl_tpu.config import DataConfig
-    from edrl_tpu.data.verify import verify_tree
+    from edrl.config import DataConfig
+    from edrl.data.verify import verify_tree
 
     cfg = DataConfig(
         dataset=args.dataset,

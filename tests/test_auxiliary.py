@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from edrl_tpu.models.auxiliary import (
+from edrl.models.auxiliary import (
     CLUBMean,
     MIAttentionFusion,
     MIEstimator,
@@ -61,7 +61,7 @@ class TestMIEstimator:
 
 class TestVisualize:
     def test_loss_and_metrics_plots(self, tmp_path):
-        from edrl_tpu.train.visualize import loss_plot, metrics_plot
+        from edrl.train.visualize import loss_plot, metrics_plot
 
         p1 = loss_plot([3.0, 2.0, 1.5], str(tmp_path / "plot" / "loss.jpg"))
         p2 = metrics_plot({"acc": [0.5, 0.6]}, str(tmp_path / "plot" / "acc.jpg"))
@@ -70,8 +70,8 @@ class TestVisualize:
     def test_proxy_dump_skips_models_without_eprl(self, tmp_path):
         """A proxy-less baseline (e.g. Multi_ResNet) with --student_t_every
         set must return None, not crash mid-training on plt.subplots(0, 4)."""
-        from edrl_tpu.config import tiny_test_config
-        from edrl_tpu.train.visualize import dump_proxy_distributions
+        from edrl.config import tiny_test_config
+        from edrl.train.visualize import dump_proxy_distributions
 
         cfg = tiny_test_config()
         out = dump_proxy_distributions(
@@ -82,7 +82,7 @@ class TestVisualize:
 
     def test_student_t_pdf(self, tmp_path):
         pytest.importorskip("scipy")
-        from edrl_tpu.train.visualize import visualize_student_t_distributions
+        from edrl.train.visualize import visualize_student_t_distributions
 
         n = 3
         path = visualize_student_t_distributions(
@@ -96,11 +96,11 @@ class TestVisualize:
 class TestEnsembleRunner:
     @pytest.mark.slow
     def test_metric_txt_written(self, tmp_path):
-        from edrl_tpu.config import tiny_test_config
-        from edrl_tpu.data import BatchLoader, SyntheticGammaDataset
-        from edrl_tpu.train.checkpoint import CheckpointManager
-        from edrl_tpu.train.ensemble import evaluate_ensemble
-        from edrl_tpu.train.trainer import init_state
+        from edrl.config import tiny_test_config
+        from edrl.data import BatchLoader, SyntheticGammaDataset
+        from edrl.train.checkpoint import CheckpointManager
+        from edrl.train.ensemble import evaluate_ensemble
+        from edrl.train.trainer import init_state
 
         cfg = tiny_test_config(batch_size=4)
         dirs = []

@@ -6,15 +6,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from edrl_tpu.baselines import MODEL_REGISTRY, build_baseline
-from edrl_tpu.baselines.models import (
+from edrl.baselines import MODEL_REGISTRY, build_baseline
+from edrl.baselines.models import (
     CBAM2D,
     CBAM3D,
     MultiDropoutResNet,
     MultiResNet,
 )
-from edrl_tpu.baselines.registry import ENSEMBLE_LRS
-from edrl_tpu.config import tiny_test_config
+from edrl.baselines.registry import ENSEMBLE_LRS
+from edrl.config import tiny_test_config
 
 TINY_SWIN = dict(embed_dim=16, depths=(1, 1), num_heads=(2, 2), window=4)
 TINY_VIT = dict(volume_size=16, patch_size=8, dim=32, depth=1, num_heads=2)
@@ -36,7 +36,7 @@ def _tiny_cfg():
 
 
 # Transformer registry entries now inherit the tiny ModelConfig geometry via
-# _swin_kwargs/_vit_kwargs (the TPU-first threading, VERDICT r2 weak #6), so
+# _swin_kwargs/_vit_kwargs (the flagship layout threading), so
 # they build CPU-fast straight from the registry.  MedFusion/IMDR stay out:
 # their EPRL token contract is pinned by ModelConfig, which _tiny_cfg's
 # resized data deliberately breaks.
@@ -98,18 +98,18 @@ class TestStructuralVariants:
         assert shapes["Multi_ResNet"] != shapes["Multi_ensemble_ResNet"]
 
     def test_transformer_baselines_inherit_model_config(self):
-        """Registry transformer baselines carry the flagship's measured
-        layout (heads / fused-attention flags from ModelConfig) so
-        baseline-vs-EDRL benches share the kernel path."""
+        """Registry transformer baselines carry the flagship's layout
+        (heads / attention remat from ModelConfig) so baseline-vs-EDRL
+        benches share the backbone."""
         import dataclasses
 
         cfg = _tiny_cfg()
         cfg = cfg.replace(
-            model=dataclasses.replace(cfg.model, use_fused_attention=True)
+            model=dataclasses.replace(cfg.model, remat_attention=True)
         )
         m2d, _ = build_baseline("2D_transformer", cfg)
         assert m2d.swin_kwargs["num_heads"] == cfg.model.swin_heads
-        assert m2d.swin_kwargs["use_fused_attention"] is True
+        assert m2d.swin_kwargs["remat_attention"] is True
         m3d, _ = build_baseline("3D_transformer", cfg)
         assert m3d.vit_kwargs["num_heads"] == cfg.model.vit3d_heads
         assert m3d.vit_kwargs["volume_size"] == cfg.data.oct_size[0]
@@ -120,7 +120,7 @@ class TestStructuralVariants:
 
 class TestTransformerBaselines:
     def test_two_d_transformer_tiny(self, tiny_batch):
-        from edrl_tpu.baselines.models import TwoDTransformer
+        from edrl.baselines.models import TwoDTransformer
 
         fundus, oct_vol, y = tiny_batch
         m = TwoDTransformer(classes=2, img_size=32, swin_kwargs=TINY_SWIN)
@@ -130,7 +130,7 @@ class TestTransformerBaselines:
         assert np.isfinite(float(loss))
 
     def test_three_d_transformer_tiny(self, tiny_batch):
-        from edrl_tpu.baselines.models import ThreeDTransformer
+        from edrl.baselines.models import ThreeDTransformer
 
         fundus, oct_vol, y = tiny_batch
         m = ThreeDTransformer(classes=2, vit_kwargs=TINY_VIT)
@@ -139,7 +139,7 @@ class TestTransformerBaselines:
         assert logits.shape == (2, 2)
 
     def test_trans_cross_tiny(self, tiny_batch):
-        from edrl_tpu.baselines.models import TransCross
+        from edrl.baselines.models import TransCross
 
         fundus, oct_vol, y = tiny_batch
         m = TransCross(classes=2, img_size=32, swin_kwargs=TINY_SWIN, vit_kwargs=TINY_VIT)
@@ -148,7 +148,7 @@ class TestTransformerBaselines:
         assert logits.shape == (2, 2)
 
     def test_mlc_trans_tiny(self, tiny_batch):
-        from edrl_tpu.baselines.models import MLCTrans
+        from edrl.baselines.models import MLCTrans
 
         fundus, oct_vol, y = tiny_batch
         m = MLCTrans(classes=2, img_size=32, swin_kwargs=TINY_SWIN, vit_kwargs=TINY_VIT)
@@ -203,7 +203,7 @@ class TestDeepEnsemble:
     def test_ensemble_average_logits(self, tiny_batch):
         """test_ensemble parity (``fusion_train.py:441-445``): member logits
         are averaged, then the uncertainty suite is computed."""
-        from edrl_tpu.train.metrics import compute_uncertainty_metrics
+        from edrl.train.metrics import compute_uncertainty_metrics
 
         fundus, oct_vol, y = tiny_batch
         cfg = _tiny_cfg()

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from edrl_tpu.config import DataConfig, NoiseConfig
-from edrl_tpu.data import (
+from edrl.config import DataConfig, NoiseConfig
+from edrl.data import (
     BatchLoader,
     GammaDataset,
     SyntheticGammaDataset,
@@ -16,9 +16,9 @@ from edrl_tpu.data import (
     kfold_split,
     make_noise_views,
 )
-from edrl_tpu.data.nifti import read_nifti, write_nifti
-from edrl_tpu.data.noise import sample_rng
-from edrl_tpu.data.transforms import (
+from edrl.data.nifti import read_nifti, write_nifti
+from edrl.data.noise import sample_rng
+from edrl.data.transforms import (
     adjust_hue,
     color_jitter,
     resize_image,
@@ -305,7 +305,7 @@ class TestGammaSub1Dataset:
         return str(root), str(label_file)
 
     def test_load_shapes_and_normalization(self, sub1_fixture):
-        from edrl_tpu.data.gamma import GammaSub1Dataset
+        from edrl.data.gamma import GammaSub1Dataset
 
         root, labels = sub1_fixture
         cfg = DataConfig(
@@ -323,7 +323,7 @@ class TestGammaSub1Dataset:
     def test_slice_order_is_numeric(self):
         """Unpadded slice names must stack in depth order, not
         lexicographic order (1,10,100,...,2 scrambles the D axis)."""
-        from edrl_tpu.data.gamma import _slice_sort_key
+        from edrl.data.gamma import _slice_sort_key
 
         names = ["1.jpg", "10.jpg", "100.jpg", "2.jpg", "20.jpg", "3.jpg"]
         assert sorted(names, key=_slice_sort_key) == [
@@ -331,7 +331,7 @@ class TestGammaSub1Dataset:
         ]
 
     def test_val_mode_no_normalization(self, sub1_fixture):
-        from edrl_tpu.data.gamma import GammaSub1Dataset
+        from edrl.data.gamma import GammaSub1Dataset
 
         root, labels = sub1_fixture
         cfg = DataConfig(
@@ -345,7 +345,7 @@ class TestGammaSub1Dataset:
 
 class TestCenterCrop:
     def test_crop_and_pad(self):
-        from edrl_tpu.data.gamma import center_crop
+        from edrl.data.gamma import center_crop
 
         img = np.arange(8 * 8 * 3, dtype=np.float32).reshape(8, 8, 3)
         out = center_crop(img, 4)
@@ -364,7 +364,7 @@ class TestXlsx:
         path = "/root/reference/train_true.xlsx"
         if not os.path.exists(path):
             pytest.skip("reference file not mounted")
-        from edrl_tpu.data.gamma import load_labels
+        from edrl.data.gamma import load_labels
 
         labels = load_labels(path)
         assert len(labels) == 3000
@@ -376,7 +376,7 @@ class TestXlsx:
         lexicographic sort puts sheet10.xml first."""
         import zipfile
 
-        from edrl_tpu.data.xlsx import read_xlsx_rows, write_xlsx
+        from edrl.data.xlsx import read_xlsx_rows, write_xlsx
 
         path = str(tmp_path / "many.xlsx")
         write_xlsx(path, ["data"], [["from_sheet1"]])
@@ -393,7 +393,7 @@ class TestXlsx:
         assert rows[1][0] == "from_sheet1"
 
     def test_write_read_roundtrip(self, tmp_path):
-        from edrl_tpu.data.xlsx import read_xlsx_rows, write_xlsx
+        from edrl.data.xlsx import read_xlsx_rows, write_xlsx
 
         path = str(tmp_path / "labels.xlsx")
         write_xlsx(
@@ -406,8 +406,8 @@ class TestXlsx:
         assert rows[1] == ["00001", "1", "0"]
 
     def test_load_labels_from_written_xlsx(self, tmp_path):
-        from edrl_tpu.data.gamma import load_labels
-        from edrl_tpu.data.xlsx import write_xlsx
+        from edrl.data.gamma import load_labels
+        from edrl.data.xlsx import write_xlsx
 
         path = str(tmp_path / "labels.xlsx")
         write_xlsx(path, ["data", "class_0", "class_1"], [["7", 0, 1]])

@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from edrl_tpu.config import NoiseConfig, tiny_test_config
-from edrl_tpu.data import BatchLoader, SyntheticGammaDataset
-from edrl_tpu.data.device_noise import make_low_view_device, make_views_device
+from edrl.config import NoiseConfig, tiny_test_config
+from edrl.data import BatchLoader, SyntheticGammaDataset
+from edrl.data.device_noise import make_low_view_device, make_views_device
 
 
 @pytest.fixture
@@ -86,7 +86,7 @@ class TestPipelineIntegration:
 
     @pytest.mark.slow
     def test_fit_runs_with_device_noise(self):
-        from edrl_tpu.train.trainer import fit
+        from edrl.train.trainer import fit
 
         cfg = tiny_test_config(batch_size=4)
         cfg = cfg.replace(
@@ -115,7 +115,7 @@ class TestUint8Transport:
         assert b["oct"].dtype == np.uint8
 
     def test_dequantize_roundtrip(self):
-        from edrl_tpu.train.trainer import _dequantize
+        from edrl.train.trainer import _dequantize
 
         x = np.arange(256, dtype=np.uint8).reshape(16, 16)
         out = np.asarray(_dequantize(jnp.asarray(x)))
@@ -127,7 +127,7 @@ class TestUint8Transport:
     def test_train_step_accepts_uint8_batch(self):
         import jax as _jax
 
-        from edrl_tpu.train.trainer import (
+        from edrl.train.trainer import (
             init_state,
             make_model,
             make_optimizer,
@@ -147,7 +147,7 @@ class TestUint8Transport:
 
 class TestDeviceAugment:
     def test_fundus_augment_shapes_and_range(self, rng):
-        from edrl_tpu.data.device_augment import augment_fundus_batch
+        from edrl.data.device_augment import augment_fundus_batch
 
         x = jnp.asarray(rng.uniform(size=(4, 16, 16, 3)).astype(np.float32))
         out = augment_fundus_batch(x, jax.random.key(0))
@@ -155,7 +155,7 @@ class TestDeviceAugment:
         assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
 
     def test_no_jitter_prob_zero_identity_up_to_flip(self, rng):
-        from edrl_tpu.data.device_augment import augment_fundus_batch
+        from edrl.data.device_augment import augment_fundus_batch
 
         x = jnp.asarray(rng.uniform(size=(4, 8, 8, 3)).astype(np.float32))
         out = augment_fundus_batch(
@@ -165,7 +165,7 @@ class TestDeviceAugment:
 
     def test_hue_round_trip_preserves_value_channel(self, rng):
         """Hue rotation must not change per-pixel max (HSV value)."""
-        from edrl_tpu.data.device_augment import augment_fundus_batch
+        from edrl.data.device_augment import augment_fundus_batch
 
         x = jnp.asarray(rng.uniform(size=(2, 8, 8, 3)).astype(np.float32))
         out = augment_fundus_batch(
@@ -178,7 +178,7 @@ class TestDeviceAugment:
         )
 
     def test_per_sample_randomness(self, rng):
-        from edrl_tpu.data.device_augment import augment_fundus_batch
+        from edrl.data.device_augment import augment_fundus_batch
 
         x = jnp.asarray(np.tile(rng.uniform(size=(1, 8, 8, 3)), (8, 1, 1, 1)).astype(np.float32))
         out = np.asarray(augment_fundus_batch(x, jax.random.key(2), jitter_prob=1.0))
@@ -187,7 +187,7 @@ class TestDeviceAugment:
         assert max(diffs) > 1e-3
 
     def test_oct_flip(self, rng):
-        from edrl_tpu.data.device_augment import augment_oct_batch
+        from edrl.data.device_augment import augment_oct_batch
 
         x = jnp.asarray(rng.uniform(size=(8, 4, 4, 4, 1)).astype(np.float32))
         out = np.asarray(augment_oct_batch(x, jax.random.key(0), hflip_prob=1.0))

@@ -13,13 +13,13 @@ import os
 import numpy as np
 import pytest
 
-from edrl_tpu.config import tiny_test_config
+from edrl.config import tiny_test_config
 
 
 class TestEnsembleWorkflow:
     @pytest.mark.slow
     def test_run_ensemble_end_to_end(self, tmp_path):
-        from edrl_tpu.cli.ensemble import run_ensemble
+        from edrl.cli.ensemble import run_ensemble
 
         cfg = tiny_test_config(batch_size=4)
         cfg = cfg.replace(
@@ -56,7 +56,7 @@ class TestOneProgramEnsemble:
     naive per-member loop exactly."""
 
     def _members(self, cfg, k=2):
-        from edrl_tpu.train.trainer import init_state
+        from edrl.train.trainer import init_state
 
         return [init_state(cfg, seed)[1] for seed in range(k)]
 
@@ -65,9 +65,9 @@ class TestOneProgramEnsemble:
         import jax
         import numpy as np
 
-        from edrl_tpu.data import BatchLoader, SyntheticGammaDataset
-        from edrl_tpu.train.ensemble import ensemble_predict
-        from edrl_tpu.train.trainer import _normalize_output, make_model
+        from edrl.data import BatchLoader, SyntheticGammaDataset
+        from edrl.train.ensemble import ensemble_predict
+        from edrl.train.trainer import _normalize_output, make_model
 
         cfg = tiny_test_config(batch_size=4)
         cfg = cfg.replace(
@@ -111,8 +111,8 @@ class TestOneProgramEnsemble:
     def test_handles_uint8_transport_batches(self):
         import numpy as np
 
-        from edrl_tpu.data import BatchLoader, SyntheticGammaDataset
-        from edrl_tpu.train.ensemble import ensemble_predict
+        from edrl.data import BatchLoader, SyntheticGammaDataset
+        from edrl.train.ensemble import ensemble_predict
 
         cfg = tiny_test_config(batch_size=4)
         cfg = cfg.replace(
@@ -132,10 +132,10 @@ class TestOneProgramEnsemble:
 class TestFourClassTraining:
     @pytest.mark.slow
     def test_medfusion_trains_4_classes(self):
-        from edrl_tpu.data import BatchLoader, SyntheticGammaDataset
-        from edrl_tpu.train.metrics import auc_ovr
-        from edrl_tpu.train.trainer import fit, make_eval_step, make_model, run_eval
-        from edrl_tpu.train.trainer import init_state
+        from edrl.data import BatchLoader, SyntheticGammaDataset
+        from edrl.train.metrics import auc_ovr
+        from edrl.train.trainer import fit, make_eval_step, make_model, run_eval
+        from edrl.train.trainer import init_state
 
         cfg = tiny_test_config(batch_size=4)
         cfg = cfg.replace(
@@ -163,7 +163,7 @@ class TestFourClassTraining:
         np.testing.assert_allclose(probs.sum(axis=1), 1.0, atol=1e-4)
 
     def test_cli_parser_carries_num_classes(self):
-        from edrl_tpu.cli.train import build_parser, config_from_args
+        from edrl.cli.train import build_parser, config_from_args
 
         args = build_parser().parse_args(
             ["--num_classes", "4", "--dataset", "synthetic"]

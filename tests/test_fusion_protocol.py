@@ -1,6 +1,6 @@
 """Complementary-evidence ("fusion") synthetic protocol + held-out splits.
 
-Covers the round-3 additions to ``edrl_tpu/data/synthetic.py``:
+Covers the round-3 additions to ``edrl/data/synthetic.py``:
 
 - every synthetic protocol's non-train splits are **held-out** draws
   (until round 3, a standalone val dataset replayed the train entropy and
@@ -18,8 +18,8 @@ import dataclasses
 import numpy as np
 import pytest
 
-from edrl_tpu.config import tiny_test_config
-from edrl_tpu.data import (
+from edrl.config import tiny_test_config
+from edrl.data import (
     SYNTHETIC_DATASETS,
     ComplementarySyntheticGammaDataset,
 )
@@ -141,7 +141,7 @@ class TestComplementaryProtocol:
         assert abs(np.corrcoef(resp, u[half:])[0, 1]) < 0.3
 
     def test_loader_integration(self, data_cfg):
-        from edrl_tpu.data import BatchLoader
+        from edrl.data import BatchLoader
 
         cfg = dataclasses.replace(data_cfg, device_noise=True)
         ds = ComplementarySyntheticGammaDataset(cfg, mode="val")

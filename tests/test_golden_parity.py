@@ -1,7 +1,7 @@
 """Golden-value parity tests: EDRL math vs independent numpy oracles.
 
 Each oracle re-implements the reference formula from scratch
-(``fusion_net.py`` / ``code/MMD.py`` citations inline) so the flax modules
+(``fusion_net.py`` / ``code/MMD.py`` citations inline) so the modules
 are checked against a second, independent derivation — not against
 themselves.
 """
@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from edrl_tpu.models.eprl import EPRL, _l2_normalize
-from edrl_tpu.models.poe import PoE
+from edrl.models.eprl import EPRL, _l2_normalize
+from edrl.models.poe import PoE
 
 
 def _np_softplus(x):
@@ -206,7 +206,7 @@ class TestDILROutputGeometry:
     the module's internals via a second apply with captured intermediates."""
 
     def test_combined_blocks(self, rng):
-        from edrl_tpu.models.dilr import DILR
+        from edrl.models.dilr import DILR
 
         b = 16
         dilr = DILR(
@@ -241,8 +241,8 @@ class TestLossCompositionWeights:
 
     @pytest.mark.slow
     def test_weights_reconstruct_total(self):
-        from edrl_tpu.config import tiny_test_config
-        from edrl_tpu.models import MedFusion
+        from edrl.config import tiny_test_config
+        from edrl.models import MedFusion
 
         cfg = tiny_test_config(batch_size=4)
         model = MedFusion(

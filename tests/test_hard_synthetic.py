@@ -11,8 +11,8 @@ import dataclasses
 import numpy as np
 import pytest
 
-from edrl_tpu.config import tiny_test_config
-from edrl_tpu.data import BatchLoader, HardSyntheticGammaDataset
+from edrl.config import tiny_test_config
+from edrl.data import BatchLoader, HardSyntheticGammaDataset
 
 
 @pytest.fixture(scope="module")
@@ -78,7 +78,7 @@ class TestMmdWeightAblation:
     def test_zero_weight_trains_and_reports_zero_mmd(self, cfg):
         import jax
 
-        from edrl_tpu.train.trainer import (
+        from edrl.train.trainer import (
             init_state,
             make_model,
             make_optimizer,
@@ -114,7 +114,7 @@ class TestMmdWeightAblation:
         making a '+JSD' ablation identical to plain '-MMD')."""
         import jax
 
-        from edrl_tpu.train.trainer import (
+        from edrl.train.trainer import (
             init_state,
             make_model,
             make_optimizer,
@@ -308,7 +308,7 @@ class TestMmdWeightAblation:
         backfills seed=0 on legacy (round-2 archive) rows."""
         import json
 
-        from edrl_tpu.train.study_io import load_by_name_seed, load_protocol_rows
+        from edrl.train.study_io import load_by_name_seed, load_protocol_rows
 
         p = tmp_path / "x.jsonl"
         rows = [

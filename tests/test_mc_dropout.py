@@ -5,13 +5,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from edrl_tpu.baselines import models as B
-from edrl_tpu.train.mc_dropout import (
+from edrl.baselines import models as B
+from edrl.train.mc_dropout import (
     make_mc_predict,
     mc_dropout_predict,
     model_supports_mc,
 )
-from edrl_tpu.train.trainer import TrainState
+from edrl.train.trainer import TrainState
 
 
 @pytest.fixture(scope="module")
@@ -45,8 +45,8 @@ class TestSupportsMc:
         assert model_supports_mc(B.FeatureExtractor2D(classes=2, dropout=0.3))
 
     def test_medfusion_does_not(self):
-        from edrl_tpu.config import tiny_test_config
-        from edrl_tpu.models import MedFusion
+        from edrl.config import tiny_test_config
+        from edrl.models import MedFusion
 
         cfg = tiny_test_config()
         assert not model_supports_mc(MedFusion(cfg=cfg.model))
@@ -112,9 +112,9 @@ class TestMcPredict:
 class TestMcOverLoader:
     @pytest.mark.slow
     def test_shapes_and_normalization(self):
-        from edrl_tpu.config import tiny_test_config
-        from edrl_tpu.data import BatchLoader, SyntheticGammaDataset
-        from edrl_tpu.train.trainer import init_state
+        from edrl.config import tiny_test_config
+        from edrl.data import BatchLoader, SyntheticGammaDataset
+        from edrl.train.trainer import init_state
 
         import dataclasses
 

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from edrl_tpu.train import metrics as M
+from edrl.train import metrics as M
 
 sklearn = pytest.importorskip("sklearn")
 from sklearn.metrics import (  # noqa: E402

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from edrl_tpu.config import tiny_test_config
-from edrl_tpu.models import DILR, EPRL, MedFusion, PoE, SwinTransformer2D, ViT3D
+from edrl.config import tiny_test_config
+from edrl.models import DILR, EPRL, MedFusion, PoE, SwinTransformer2D, ViT3D
 
 
 def _init_and_apply(module, rngs, *args, **kwargs):
@@ -220,9 +220,9 @@ class TestPoEMaskRenormalization:
     def test_masked_accuracy_both_semantics(self):
         import dataclasses
 
-        from edrl_tpu.config import tiny_test_config
-        from edrl_tpu.data import BatchLoader, SyntheticGammaDataset
-        from edrl_tpu.train.trainer import (
+        from edrl.config import tiny_test_config
+        from edrl.data import BatchLoader, SyntheticGammaDataset
+        from edrl.train.trainer import (
             fit,
             make_eval_step,
             make_model,

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from edrl_tpu.ops import (
+from edrl.ops import (
     barlow_block_loss,
     batch_standardize,
     club_learning_loss,

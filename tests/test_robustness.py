@@ -1,11 +1,11 @@
-"""Noise-sweep robustness eval tests (BASELINE.json config 5)."""
+"""Noise-sweep robustness eval tests."""
 
 import numpy as np
 import pytest
 
-from edrl_tpu.config import tiny_test_config
-from edrl_tpu.train.robustness import format_sweep, noise_sweep
-from edrl_tpu.train.trainer import init_state
+from edrl.config import tiny_test_config
+from edrl.train.robustness import format_sweep, noise_sweep
+from edrl.train.trainer import init_state
 
 
 @pytest.mark.slow
@@ -43,7 +43,7 @@ def test_noise_sweep_evaluates_every_sample():
         cfg, data=dataclasses.replace(cfg.data, num_synthetic_samples=11,
                                       eval_batch_size=4)
     )
-    from edrl_tpu.data import SyntheticGammaDataset
+    from edrl.data import SyntheticGammaDataset
 
     n_val = len(SyntheticGammaDataset(cfg.data, mode="val"))
     assert n_val % cfg.data.eval_batch_size != 0, "fixture must have remainder"
@@ -111,8 +111,8 @@ def test_unknown_probe_kind_raises():
 
 def test_cli_sweep_flags_parse():
     """cli.test --sweep plumbing: flags parse and kind resolution matches
-    the library's probe kinds (exercised end-to-end on the TPU drive)."""
-    from edrl_tpu.cli.train import build_parser
+    the library's probe kinds."""
+    from edrl.cli.train import build_parser
 
     parser = build_parser()
     parser.add_argument("--checkpoint", default="")
@@ -129,7 +129,7 @@ def test_cli_sweep_flags_parse():
 def test_sweep_all_does_not_reuse_gaussian_levels_for_salt_pepper():
     """--sweep all + --sweep_levels must override gaussian ONLY: sigma
     0.25-0.5 read as a corrupted-pixel fraction is 10x past the SP grid."""
-    from edrl_tpu.cli.test import resolve_sweep_levels
+    from edrl.cli.test import resolve_sweep_levels
 
     sigmas, sp = (0.0, 0.25, 0.5), (0.0, 0.01, 0.05)
     # all + --sweep_levels: gaussian overridden, SP keeps its default grid

@@ -14,8 +14,8 @@ import sys
 import numpy as np
 import pytest
 
-from edrl_tpu.config import DataConfig, tiny_test_config
-from edrl_tpu.data.nifti import write_nifti
+from edrl.config import DataConfig, tiny_test_config
+from edrl.data.nifti import write_nifti
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -95,8 +95,8 @@ def test_ondisk_tree_trains_end_to_end(tree):
     epoch to finite loss + an eval over the val fold."""
     import dataclasses
 
-    from edrl_tpu.cli.train import make_loaders
-    from edrl_tpu.train.trainer import fit
+    from edrl.cli.train import make_loaders
+    from edrl.train.trainer import fit
 
     root, labels = tree
     cfg = tiny_test_config(batch_size=2)

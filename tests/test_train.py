@@ -7,11 +7,11 @@ import jax
 import numpy as np
 import pytest
 
-from edrl_tpu.config import tiny_test_config
-from edrl_tpu.data import BatchLoader, SyntheticGammaDataset
-from edrl_tpu.train import metrics as metrics_lib
-from edrl_tpu.train.checkpoint import CheckpointManager
-from edrl_tpu.train.trainer import (
+from edrl.config import tiny_test_config
+from edrl.data import BatchLoader, SyntheticGammaDataset
+from edrl.train import metrics as metrics_lib
+from edrl.train.checkpoint import CheckpointManager
+from edrl.train.trainer import (
     fit,
     init_state,
     make_eval_step,
@@ -75,8 +75,8 @@ class TestSmokeTrain:
         """Preemption resume re-runs epochs after the restored `latest`; the
         writer must drop the pre-crash rows for those epochs or the CSV
         double-counts them."""
-        from edrl_tpu.train.logging import CsvMetricWriter
-        from edrl_tpu.train.metrics import EpochMetrics
+        from edrl.train.logging import CsvMetricWriter
+        from edrl.train.metrics import EpochMetrics
 
         path = str(tmp_path / "m.csv")
         w = CsvMetricWriter(path)
@@ -194,7 +194,7 @@ class TestResume:
         loader shuffles + step-folded PRNG make resume exact)."""
         import dataclasses
 
-        from edrl_tpu.train.trainer import resume_from_latest
+        from edrl.train.trainer import resume_from_latest
 
         train_loader, val_loader = loaders
         base = cfg.replace(
@@ -234,7 +234,7 @@ class TestResume:
         the configured start, so the offset must be added back)."""
         import dataclasses
 
-        from edrl_tpu.train.trainer import resume_from_latest
+        from edrl.train.trainer import resume_from_latest
 
         train_loader, val_loader = loaders
         base = cfg.replace(
@@ -256,7 +256,7 @@ class TestResume:
         assert rcfg.train.start_epoch == 5
 
     def test_resume_without_latest_returns_none(self, cfg, loaders, tmp_path):
-        from edrl_tpu.train.trainer import resume_from_latest
+        from edrl.train.trainer import resume_from_latest
 
         train_loader, _ = loaders
         mgr = CheckpointManager(str(tmp_path / "empty_ckpt"))
@@ -265,7 +265,7 @@ class TestResume:
 
 class TestMissingModality:
     def test_all_three_configurations(self, cfg, fitted, loaders):
-        """BASELINE.json config 5: fundus-only / OCT-only / both must all run."""
+        """fundus-only / OCT-only / both must all run."""
         state, _ = fitted
         _, val_loader = loaders
         eval_step = make_eval_step(make_model(cfg), cfg)
@@ -282,7 +282,7 @@ class TestUncertaintySuiteOnEval:
         state, _ = fitted
         _, val_loader = loaders
         cfg_model = fitted  # placeholder to keep signature simple
-        from edrl_tpu.config import tiny_test_config
+        from edrl.config import tiny_test_config
 
         c = tiny_test_config(batch_size=4)
         eval_step = make_eval_step(make_model(c), c)
@@ -299,9 +299,9 @@ class TestJSDistillation:
         import dataclasses
         import jax
 
-        from edrl_tpu.config import tiny_test_config
-        from edrl_tpu.data import BatchLoader, SyntheticGammaDataset
-        from edrl_tpu.train.trainer import (
+        from edrl.config import tiny_test_config
+        from edrl.data import BatchLoader, SyntheticGammaDataset
+        from edrl.train.trainer import (
             init_state,
             make_model,
             make_optimizer,
@@ -329,46 +329,9 @@ class TestJSDistillation:
         assert float(out1["loss"]) != pytest.approx(float(out0["loss"]), rel=1e-9)
 
 
-class TestPallasMMDInTrainStep:
-    @pytest.mark.slow
-    def test_pallas_mmd_path_runs(self):
-        """use_pallas_mmd routes the self-distillation loss through the fused
-        kernel (interpret mode on CPU) and matches the XLA path."""
-        import dataclasses
-        import jax as _jax
-        import jax.numpy as _jnp
-
-        from edrl_tpu.config import tiny_test_config
-        from edrl_tpu.data import BatchLoader, SyntheticGammaDataset
-        from edrl_tpu.train.trainer import (
-            init_state,
-            make_model,
-            make_optimizer,
-            make_train_step,
-        )
-
-        cfg0 = tiny_test_config(batch_size=4)
-        cfg1 = cfg0.replace(
-            train=dataclasses.replace(cfg0.train, use_pallas_mmd=True)
-        )
-        _, state0 = init_state(cfg0, 0)
-        _, state1 = init_state(cfg1, 0)
-        loader = BatchLoader(
-            SyntheticGammaDataset(cfg0.data, mode="train"), 4, shuffle=False,
-            num_workers=2,
-        )
-        batch = _jax.tree_util.tree_map(_jnp.asarray, next(iter(loader.epoch(0))))
-        key = _jax.random.key(5)
-        s0 = make_train_step(make_model(cfg0), make_optimizer(cfg0), cfg0)
-        s1 = make_train_step(make_model(cfg1), make_optimizer(cfg1), cfg1)
-        _, out0 = s0(state0, batch, key)
-        _, out1 = s1(state1, batch, key)
-        assert float(out1["mmd"]) == pytest.approx(float(out0["mmd"]), rel=1e-3)
-
-
 class TestPlateauSchedule:
     def test_tracker_reduces_after_patience(self):
-        from edrl_tpu.train.trainer import PlateauTracker
+        from edrl.train.trainer import PlateauTracker
 
         t = PlateauTracker(lr=1e-3, factor=0.1, patience=2)
         assert t.step(1.0) is None  # first value = improvement
@@ -378,7 +341,7 @@ class TestPlateauSchedule:
         assert t.step(0.5) is None  # improvement resets
 
     def test_set_learning_rate_mutates_opt_state(self, cfg):
-        from edrl_tpu.train.trainer import (
+        from edrl.train.trainer import (
             get_learning_rate,
             init_state,
             set_learning_rate,
@@ -398,7 +361,7 @@ class TestPlateauSchedule:
         first post-resume plateau event raise the lr (lr0*factor > live)."""
         import dataclasses
 
-        from edrl_tpu.train.trainer import (
+        from edrl.train.trainer import (
             fit,
             get_learning_rate,
             init_state,
@@ -435,7 +398,7 @@ class TestWarmup:
         constant lr leaves full EDRL on its init plateau on some seeds,
         ABLATION_FUSION_WARMUP.md); the tiny test config opts out because
         its runs are shorter than the ramp."""
-        from edrl_tpu.config import EDRLConfig, tiny_test_config
+        from edrl.config import EDRLConfig, tiny_test_config
 
         assert EDRLConfig().train.warmup_steps == 100
         assert tiny_test_config().train.warmup_steps == 0
@@ -450,8 +413,8 @@ class TestWarmup:
         import jax.numpy as jnp
         import optax
 
-        from edrl_tpu.config import tiny_test_config
-        from edrl_tpu.train.trainer import make_optimizer
+        from edrl.config import tiny_test_config
+        from edrl.train.trainer import make_optimizer
 
         c0 = tiny_test_config(batch_size=4)
         w = 4
@@ -477,7 +440,7 @@ class TestWarmup:
         adam); appending the warmup element must not move that index."""
         import dataclasses
 
-        from edrl_tpu.train.trainer import (
+        from edrl.train.trainer import (
             get_learning_rate,
             init_state,
             set_learning_rate,
@@ -499,8 +462,8 @@ class TestWarmup:
 
         import jax.numpy as jnp
 
-        from edrl_tpu.config import tiny_test_config
-        from edrl_tpu.train.trainer import make_optimizer
+        from edrl.config import tiny_test_config
+        from edrl.train.trainer import make_optimizer
 
         c0 = tiny_test_config(batch_size=4)
         params = {"k": jnp.ones((3, 2))}
@@ -532,7 +495,7 @@ class TestWarmup:
         structure in every combination."""
         import dataclasses
 
-        from edrl_tpu.train.trainer import (
+        from edrl.train.trainer import (
             get_learning_rate,
             init_state,
             set_learning_rate,
@@ -552,7 +515,7 @@ class TestWarmup:
         """One fit() epoch with warmup on: runs, loss finite."""
         import dataclasses
 
-        from edrl_tpu.train.trainer import fit, init_state
+        from edrl.train.trainer import fit, init_state
 
         c = cfg.replace(
             train=dataclasses.replace(
@@ -600,7 +563,7 @@ class TestObservabilityWiring:
         assert os.path.isdir(os.path.join(ckpt_dir, "epoch_1"))
 
     def test_setup_logging_idempotent(self, tmp_path):
-        from edrl_tpu.train.logging import setup_logging
+        from edrl.train.logging import setup_logging
 
         log_file = str(tmp_path / "x.log")
         logger = setup_logging(log_file)
@@ -673,8 +636,8 @@ class TestScanCarryCongruence:
         import jax
         import numpy as np
 
-        from edrl_tpu.config import tiny_test_config
-        from edrl_tpu.train.trainer import (
+        from edrl.config import tiny_test_config
+        from edrl.train.trainer import (
             init_state,
             make_model,
             make_optimizer,
@@ -737,7 +700,7 @@ class TestEvalRemainderWeighting:
         }
 
     def test_sample_weighted_mean(self):
-        from edrl_tpu.train.trainer import run_eval
+        from edrl.train.trainer import run_eval
 
         # 8 zeros then 2 ones: sample-weighted mean = 0.2; the old
         # equal-batch-weight mean was 0.5.
@@ -750,8 +713,8 @@ class TestEvalRemainderWeighting:
         assert targets.shape[0] == 10 and probs.shape[0] == 10
 
     def test_mesh_padding_does_not_inflate_remainder(self):
-        from edrl_tpu.parallel import make_mesh
-        from edrl_tpu.train.trainer import run_eval
+        from edrl.parallel import make_mesh
+        from edrl.train.trainer import run_eval
 
         mesh = make_mesh(num_data=8, num_model=1)
         batches = [

@@ -1,4 +1,4 @@
-"""Real-data preflight verifier (edrl_tpu/data/verify.py, VERDICT r3 #6).
+"""Real-data preflight verifier (edrl/data/verify.py, VERDICT r3 #6).
 
 Builds a healthy on-disk GAMMA tree, then corrupts it one defect at a time
 and asserts the verifier names each defect with the right severity —
@@ -12,9 +12,9 @@ import struct
 import numpy as np
 import pytest
 
-from edrl_tpu.config import DataConfig
-from edrl_tpu.data.nifti import write_nifti
-from edrl_tpu.data.verify import verify_tree
+from edrl.config import DataConfig
+from edrl.data.nifti import write_nifti
+from edrl.data.verify import verify_tree
 
 
 def _write_png(path, rng, size=(40, 40)):
